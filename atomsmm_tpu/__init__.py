@@ -1,4 +1,4 @@
-"""atomsmm_tpu — a TPU-native molecular dynamics engine with the capabilities
+"""atomsmm_tpu — a JAX molecular dynamics engine with the capabilities
 of atoms-ufrj/atomsmm (see SURVEY.md for the reference analysis and its
 evidentiary status, BASELINE.md for targets).
 

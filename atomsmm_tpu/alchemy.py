@@ -6,7 +6,7 @@ periodically evaluate the potential at ALL lambda' states to build a K x K
 reference defers to external pymbar; pymbar is not available here, so the
 solver is implemented as a plain JAX fixed point — SURVEY.md §7 M7).
 
-TPU shape: lambda is a traced scalar inside the potential, so the multi-state
+Shape: lambda is a traced scalar inside the potential, so the multi-state
 energy evaluation is ONE vmap over the globals dict — no recompilation, no
 loops (SURVEY.md §2b N9).
 

@@ -5,7 +5,7 @@ In the reference, each Propagator emits openmm.CustomIntegrator variables and
 instruction steps; composition mirrors operator-splitting math, and OpenMM's
 CustomIntegrator VM executes the program. Here each Propagator's `apply`
 emits *traced JAX operations on the State pytree*; composition builds one
-jittable step function that `lax.scan`/`fori_loop` executes on TPU. The
+jittable step function that `lax.scan`/`fori_loop` executes on the device. The
 algebra (Chained / Split / TrotterSuzuki / SuzukiYoshida / Respa) is preserved
 exactly, including operator ordering and Suzuki-Yoshida weights — the
 "single most important semantic object to replicate" (SURVEY.md §3.2).

@@ -3,7 +3,7 @@
 atomsmm's own tests and docs build every System from AMBER ``.prmtop`` /
 ``.inpcrd`` pairs via ``openmm.app.AmberPrmtopFile`` (SURVEY.md §2a Tests row:
 ``tests/data/`` holds q-SPC/FW water, emim/BF4 and phenol+water AMBER files).
-This package provides the TPU-native equivalent: parse the files with numpy,
+This package provides the equivalent: parse the files with numpy,
 emit our ``System`` pytree directly.
 """
 from .amber import AmberPrmtop, amber_system, read_inpcrd, read_prmtop

@@ -726,7 +726,7 @@ def amber_system(
     rigid_water: bool = False,
     hydrogen_mass: float | None = None,
 ) -> tuple:
-    """Build (System, positions, box) from AMBER files — the TPU-native
+    """Build (System, positions, box) from AMBER files — the
     equivalent of ``AmberPrmtopFile(...).createSystem(...)`` (SURVEY.md §3.1).
 
     ``prmtop``/``inpcrd`` may be paths or already-parsed objects. All forces

@@ -4,7 +4,7 @@ The cell-bucket formulation (ops/neighbors.py) pays twice for fixed-capacity
 padding: home rows are ~55% occupied and candidate columns inherit the same
 factor, so only ~2.5% of tile slots are real in-range pairs at water density.
 This module replaces cells with the NAMD/GPU-style *tile list*, reshaped for
-the TPU VPU:
+elementwise evaluation:
 
   * atoms are sorted by the serpentine (boustrophedon) order of their
     fine-grid cell — consecutive 64-atom BLOCKS are then spatially compact,
@@ -14,8 +14,8 @@ the TPU VPU:
     r_build); Newton applies at block level: only j >= i is listed, each
     block pair is evaluated once;
   * evaluation is the same mask-don't-branch (B, K*B) tile sweep as the cell
-    path — one coarse gather to stage candidate features, pure VPU math, no
-    fine-grained gathers;
+    path — one coarse gather to stage candidate features, pure elementwise
+    math, no fine-grained gathers;
   * cross-block reaction forces scatter back by construction: candidate
     columns of block j live at sorted positions j*B..j*B+B, so the
     write-back is a single indexed add in sorted space, then one unsort.

@@ -1,6 +1,6 @@
 """Bonded interactions: harmonic bonds / angles, periodic torsions.
 
-TPU-native equivalents of openmm's HarmonicBondForce / HarmonicAngleForce /
+Equivalents of openmm's HarmonicBondForce / HarmonicAngleForce /
 PeriodicTorsionForce (SURVEY.md §2b N3): pure gathers + reductions, trivially
 fused by XLA; forces come from jax.grad. Padded entries carry k = 0 so no
 masks are needed in the hot path.

@@ -2,7 +2,7 @@
 
 A CMAP term couples two consecutive backbone dihedrals phi = (i,j,k,l) and
 psi = (j,k,l,m) through a periodic 2-D correction surface tabulated on an
-n x n grid over [-180, 180)^2 (n = 24 for the CHARMM36 tables). The TPU
+n x n grid over [-180, 180)^2 (n = 24 for the CHARMM36 tables). The
 evaluation is a C1 periodic bicubic patch: grid-value AND derivative
 tables are precomputed host-side by fitting C2 periodic cubic splines
 along each row/column and taking their knot derivatives — the same
@@ -29,6 +29,7 @@ True
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -104,10 +105,13 @@ def cmap_interpolate(table, type_index, phi, psi):
         jnp.stack([c10[:, 1], c11[:, 1], c10[:, 3], c11[:, 3]], -1),
     ], -2)  # (C, 4, 4)
     a = jnp.asarray(_A, dtype)
-    coeff = jnp.einsum("ij,cjk,lk->cil", a, f_mat.astype(dtype), a)
+    # HIGHEST: the GPU default would run these f32 contractions in TF32
+    hi = jax.lax.Precision.HIGHEST
+    coeff = jnp.einsum("ij,cjk,lk->cil", a, f_mat.astype(dtype), a,
+                       precision=hi)
     tv = jnp.stack([jnp.ones_like(t), t, t * t, t * t * t], -1)
     sv = jnp.stack([jnp.ones_like(s), s, s * s, s * s * s], -1)
-    return jnp.einsum("ci,cij,cj->c", tv, coeff, sv)
+    return jnp.einsum("ci,cij,cj->c", tv, coeff, sv, precision=hi)
 
 
 def cmap_energy(x, idx5, type_index, table):

@@ -1,6 +1,6 @@
 """Holonomic distance constraints — SHAKE/RATTLE (SURVEY.md §2b N5).
 
-OpenMM uses SETTLE/CCMA; here the TPU-native choice is vectorized *Jacobi*
+OpenMM uses SETTLE/CCMA; here the choice is vectorized *Jacobi*
 SHAKE: every constraint computes its Lagrange correction against the
 current iterate simultaneously (one masked vector op over all constraints),
 repeated a fixed number of sweeps — no per-molecule branching, no sequential

@@ -14,35 +14,22 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from contextlib import contextmanager
-
 from ..units import ONE_4PI_EPS0
 from .rv import Rv, make_rv, rv_parts  # noqa: F401  (re-exported)
 from .switching import switch_quintic
 
 # --- erfc dispatch ----------------------------------------------------------
-# Mosaic (Pallas TPU) has no erfc lowering; inside kernel traces we swap in a
-# rational approximation (Abramowitz & Stegun 7.1.26, |err| <= 1.5e-7 — at
-# f32 roundoff). Outside kernels the exact lax.erfc is used, keeping the f64
-# CPU reference path at full precision.
-_KERNEL_SAFE_MATH = [False]
-
-
-@contextmanager
-def kernel_safe_math():
-    _KERNEL_SAFE_MATH.append(True)
-    try:
-        yield
-    finally:
-        _KERNEL_SAFE_MATH.pop()
+# f32 pair sweeps use a rational approximation (Abramowitz & Stegun 7.1.26,
+# |err| <= 1.5e-7 — at f32 roundoff); f64 keeps the exact lax.erfc, so the
+# CPU reference path stays at full precision.
 
 
 @jax.custom_jvp
 def erfc_approx(x):
     """A&S 7.1.26 for x >= 0 (pair distances are positive): t-polynomial
     times exp(-x^2); max abs error 1.5e-7. The tangent uses the EXACT
-    derivative d/dx erfc = -2/sqrt(pi) e^{-x^2} (also Mosaic-lowerable), so
-    kernel forces don't inherit the polynomial's larger derivative error."""
+    derivative d/dx erfc = -2/sqrt(pi) e^{-x^2}, so forces don't inherit
+    the polynomial's larger derivative error."""
     t = 1.0 / (1.0 + 0.3275911 * x)
     poly = t * (
         0.254829592
@@ -60,15 +47,13 @@ def _erfc_approx_jvp(primals, tangents):
 def erfc(x):
     """erfc with a precision-matched fast path.
 
-    f32 inputs (the TPU production path) use the A&S 7.1.26 approximation:
+    f32 inputs (the production path) use the A&S 7.1.26 approximation:
     its 1.5e-7 absolute error sits at f32 roundoff while costing a fraction
     of the exact rational erfc (measured: the erfc term is the dominant
     marginal cost of the PME near/far sweeps — profile_headline r3). f64
     (the CPU reference platform, goldens) keeps the exact lax erfc. Set
     ATOMSMM_EXACT_ERFC=1 to force the exact form everywhere.
     """
-    if _KERNEL_SAFE_MATH[-1]:
-        return erfc_approx(x)
     import os
 
     if jnp.asarray(x).dtype == jnp.float32 and not os.environ.get(
@@ -97,7 +82,7 @@ def lj(r, sigma, epsilon):
     """
     # single-reciprocal form: every pair primitive multiplies by (1/r) (or an
     # Rv's shared rsqrt — ops/rv.py) so the reciprocal is computed once per
-    # slot — divides/sqrts are the dominant per-slot cost on the TPU VPU
+    # slot — divides/sqrts are the dominant per-slot arithmetic cost
     _, rinv, _ = rv_parts(r)
     t = sigma * rinv
     t2 = t * t

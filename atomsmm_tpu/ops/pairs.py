@@ -3,10 +3,10 @@
 Chunked, masked O(N^2) evaluation of an arbitrary pair energy function with
 exclusions. This plays the role OpenMM's Reference platform plays for the
 reference's test suite (SURVEY.md §4): deterministic, f64-capable, the source
-of golden energies. The production path is the fixed-capacity neighbor-list /
-Pallas kernel in ops/neighbors.py — which is bit-checked against this one.
+of golden energies. The production path is the fixed-capacity cell-list sweep
+in ops/neighbors.py — which is checked against this one.
 
-Design notes (TPU-first):
+Design notes:
   * mask-don't-branch: every pair is computed, invalid ones multiplied by 0;
   * row-chunked lax.scan keeps peak memory at O(chunk * N);
   * forces come from jax.grad of the energy — no hand-written force kernels

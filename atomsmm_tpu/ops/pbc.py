@@ -15,8 +15,7 @@ Every subsystem accepts both forms: the dense pair path, bonded terms, PME,
 virials, the MC barostat, and (since r4) the production cell-list path —
 make_neighbor_spec sizes the grid/stencil from PERPENDICULAR widths,
 build_cell_buckets bins in fractional coordinates, and the pair sweep's
-displacements go through this module's triclinic minimum image (the Pallas
-kernel inlines orthorhombic images, so matrix boxes pin the XLA sweep).
+displacements go through this module's triclinic minimum image.
 
 Examples:
 
@@ -68,10 +67,10 @@ def minimum_image(dx: jnp.ndarray, box: jnp.ndarray) -> jnp.ndarray:
     dividing elementwise — the reciprocal is hoisted out of the pair tile,
     the per-slot op is a mul. Triclinic: round in fractional coordinates
     (inv(H) is loop-invariant; XLA hoists it). The (..., 3) x (3, 3)
-    matmuls pin Precision.HIGHEST: TPU default precision rounds matmul
-    INPUTS to bf16 (8-bit mantissa, rel ~4e-3) — displacements through a
-    bf16 matmul would corrupt every triclinic pair force; these contractions
-    are tiny, so full precision costs nothing.
+    matmuls pin Precision.HIGHEST: a GPU's default f32 matmul rounds its
+    INPUTS to TF32 (10-bit mantissa, rel ~1e-3) — displacements through a
+    TF32 matmul would corrupt every triclinic pair force; these
+    contractions are tiny, so full precision costs nothing.
     """
     box = jnp.asarray(box)
     if box.ndim == 1:

@@ -1,12 +1,15 @@
-"""Smooth Particle-Mesh Ewald — TPU-native reciprocal-space electrostatics.
+"""Smooth Particle-Mesh Ewald — reciprocal-space electrostatics.
 
 Replaces openmm's PME (SURVEY.md §2b N1: charge spreading, 3-D FFT,
 reciprocal convolution, self/exclusion corrections). Design:
 
-  * B-spline charge spreading is the classic TPU-hostile scatter; here it is
-    recast as dense per-dimension one-hot weight matrices combined by chunked
-    MXU matmuls: Q[a, bc] += Wx_chunk^T @ (q * (Wy ⊗ Wz))_chunk — no scatter
-    in the differentiated path, so forces via jax.grad are matmuls + FFTs;
+  * B-spline charge spreading is recast as dense per-dimension one-hot
+    weight matrices combined by chunked matmuls:
+    Q[a, bc] += Wx_chunk^T @ (q * (Wy ⊗ Wz))_chunk — no scatter in the
+    differentiated path, so forces via jax.grad are matmuls + FFTs. Every
+    spreading product runs at Precision.HIGHEST (plain FP32): on a GPU the
+    default f32 matmul runs in TF32, whose 10-bit input mantissa puts a
+    ~1e-3 relative error on every reciprocal force;
   * reciprocal sum: one jnp.fft.fftn over the charge grid, analytic
     Gaussian/spline filter, O(K^3) elementwise;
   * direct space (erfc pairs) lives in the nonbonded pair path
@@ -120,7 +123,7 @@ def spread_charges(x, box, q, grid_shape: Tuple[int, int, int],
 
     Chunked over atoms; per chunk, per-dimension dense weight matrices
     (C, K_d) are built by comparing grid iota against the spline support
-    indices (mask-don't-branch), then combined with one MXU matmul.
+    indices (mask-don't-branch), then combined with one matmul.
     """
     if order < 3:
         # PME forces differentiate the spreading weights; the analytic
@@ -157,24 +160,22 @@ def spread_charges(x, box, q, grid_shape: Tuple[int, int, int],
         if box.ndim == 1:
             u = xc / box * kvec  # fractional grid coordinates
         else:  # triclinic: fractional via inv(H) (rows = lattice vectors);
-            # full precision — TPU default rounds matmul inputs to bf16,
-            # which would quantize POSITIONS to 8-bit mantissa
+            # full precision — a TF32 matmul would quantize POSITIONS to a
+            # 10-bit mantissa
             u = jnp.matmul(xc, jnp.linalg.inv(box),
                            precision=jax.lax.Precision.HIGHEST) * kvec
         wx = dense_w(u[:, 0], k1, iotas[0])
         wy = dense_w(u[:, 1], k2, iotas[1])
         wz = dense_w(u[:, 2], k3, iotas[2])
         wyz = (wy[:, :, None] * wz[:, None, :]).reshape(chunk, k2 * k3)
-        # Precision.HIGH (bf16x3): preferred_element_type alone only sets
-        # the ACCUMULATOR dtype — at TPU default precision the INPUTS are
-        # still rounded to bf16 (rel ~4e-3), which put a broad ~1e-3
-        # relative error on every reciprocal force (tpu_gate.py caught it:
-        # max|dF| 7.2 kJ/mol/nm vs the 0.13 f32 floor). HIGH recovers the
-        # floor exactly (measured 0.123 vs HIGHEST's 0.131) at +0.35
-        # ms/step on the 30k PME headline, where HIGHEST costs +2.8.
+        # Precision.HIGHEST: preferred_element_type alone only sets the
+        # ACCUMULATOR dtype; at default precision a GPU rounds the INPUTS
+        # to TF32 (rel ~1e-3), a broad error on every reciprocal force.
+        # HIGH is TF32 too on a GPU, so only HIGHEST keeps FP32 inputs
+        # (chip_smoke.py gates the forces against the f64 reference).
         contrib = jnp.dot(
             wx.T, qc[:, None] * wyz, preferred_element_type=dtype,
-            precision=jax.lax.Precision.HIGH,
+            precision=jax.lax.Precision.HIGHEST,
         )  # (K1, K2*K3)
         return Q + contrib, None
 
@@ -186,8 +187,8 @@ def spread_charges(x, box, q, grid_shape: Tuple[int, int, int],
 def _frac_grid_coords(x, box, kvec):
     """Fractional grid coordinates u in [0, K) per dimension.
 
-    HIGHEST precision on the triclinic transform — the TPU default rounds
-    matmul INPUTS to bf16, which would quantize positions to 8-bit mantissa.
+    HIGHEST precision on the triclinic transform — a TF32 matmul would
+    quantize positions to a 10-bit mantissa.
     """
     if box.ndim == 1:
         return x / box * kvec
@@ -234,18 +235,15 @@ def _bucket_by_block(bid, n: int, nbtot: int, cap: int,
     block), so downstream sums are bitwise-equal:
 
     * 'sort' (default): one packed value sort (the neighbors.py
-      key-carries-payload idiom) + segment ranks. Measured 30k/729 blocks
-      on v5e: 1.81 ms for the full bucket build.
-    * 'hist': MXU histogram ranking — EXPERIMENTAL, measured SLOWER
-      (2.22 ms at 30k/729). Rank-within-block = (earlier same-block atoms
-      in my 128-atom chunk, via a strictly-lower-triangular matmul against
-      the chunk's block one-hot) + (same-block atoms in earlier chunks, via
-      an exclusive chunk-histogram prefix); every product is 0/1 and every
-      within-chunk count <= 127, so bf16 is exact. The hypothesis was that
-      replacing the VPU bitonic sort with MXU matmuls would win; it does
-      not — the (N, nbtot) one-hot CONSTRUCTION is itself VPU compare/select
-      work bigger than the sort, and it scales with nbtot where the sort
-      does not. Kept as the measured-negative alternate (KERNELS.md).
+      key-carries-payload idiom) + segment ranks.
+    * 'hist': matmul histogram ranking — EXPERIMENTAL, not the default.
+      Rank-within-block = (earlier same-block atoms in my 128-atom chunk,
+      via a strictly-lower-triangular matmul against the chunk's block
+      one-hot) + (same-block atoms in earlier chunks, via an exclusive
+      chunk-histogram prefix); every product is 0/1 and every within-chunk
+      count <= 127, so bf16 is exact on any backend. The (N, nbtot)
+      one-hot construction is itself compare/select work that scales with
+      nbtot, where the sort does not.
     """
     if binning == "sort":
         idx_bits = max(n - 1, 1).bit_length()
@@ -351,12 +349,13 @@ def spread_charges_blocked(x, box, q, grid_shape: Tuple[int, int, int],
     wy = _local_window_weights(g_t[..., 1], g_o[..., 1], order, w2, dtype)
     wz = _local_window_weights(g_t[..., 2], g_o[..., 2], order, w3, dtype)
     wyz = (wy[..., :, None] * wz[..., None, :]).reshape(nbtot, cap, w2 * w3)
-    # batched (W1, cap) @ (cap, W2*W3); Precision.HIGH — see spread_charges
+    # batched (W1, cap) @ (cap, W2*W3); Precision.HIGHEST — see
+    # spread_charges
     local = jax.lax.dot_general(
         wx, g_q[..., None] * wyz,
         dimension_numbers=(((1,), (1,)), ((0,), (0,))),
         preferred_element_type=dtype,
-        precision=jax.lax.Precision.HIGH,
+        precision=jax.lax.Precision.HIGHEST,
     )  # (nbtot, W1, W2*W3)
     local = local.reshape(nb1, nb2, nb3, w1, w2, w3)
     local = _fold_axis(local, 0, 3, b1, s)
@@ -522,7 +521,7 @@ def spread_charges_stale(x, box, q, grid_shape: Tuple[int, int, int],
         wx, g_q[..., None] * wyz,
         dimension_numbers=(((1,), (1,)), ((0,), (0,))),
         preferred_element_type=dtype,
-        precision=jax.lax.Precision.HIGH,
+        precision=jax.lax.Precision.HIGHEST,
     )  # (nbtot, W1, W2*W3)
     local = local.reshape(nb1, nb2, nb3, w1, w2, w3)
     local = _fold_axis_padded(local, 0, 3, b1, s, pad)
@@ -592,12 +591,10 @@ def choose_spread_blocks(grid_shape, order: int, n: int,
     retune (forces.retune_pme_spread).
 
     Declines outright when dense spreading is already cheap
-    (< 1 G MAC): the bucket build is a fixed ~1.4-1.8 ms of grid-
-    independent sort work, and below that scale it eats the whole win —
-    measured on v5e: 30k/45^3 (2.7 G) 1.29x faster blocked, but emim
-    5.2k/32^3 (0.17 G) neutral-to-slower. (With pad>=1 the bucket is
-    amortized across steps, but the padded-window MAC growth still makes
-    blocking a loss below that scale.)"""
+    (< 1 G MAC): the bucket build is grid-independent sort work, and below
+    that scale it can eat the whole win (the 30k water grid, 45^3, is
+    2.7 G MAC; emim 5.2k on 32^3 is 0.17 G). The threshold is a
+    hypothesis to re-measure on the card."""
     k1, k2, k3 = grid_shape
     s = order - 1
     lo = max(4, s, pad)
@@ -755,9 +752,8 @@ def pme_exclusion_correction(x, box, q, exclusions, alpha):
     """Remove reciprocal-space interactions of excluded pairs:
     -k_e q_i q_j erf(alpha r)/r summed over each excluded pair once.
 
-    Flattened to (N*M,) 1-D ops: the natural (N, M[, 3]) broadcast layout has
-    a tiny minor dimension that pads every VPU tile 32x on TPU (measured 2x
-    slower)."""
+    Flattened to (N*M,) 1-D ops rather than the natural (N, M[, 3])
+    broadcast layout, whose minor dimension is tiny."""
     n, m = exclusions.shape
     ii = jnp.repeat(jnp.arange(n, dtype=exclusions.dtype), m)
     ej = exclusions.reshape(-1)
@@ -805,10 +801,10 @@ def choose_pme_parameters(r_cut, box, tol: float = 5e-4, alpha=None,
     alpha matches openmm.NonbondedForce's heuristic
     (sqrt(-log(2 tol))/r_cut). The grid uses the order-4 openmm rule
     K_d = ceil(2 alpha L_d / (3 tol^(1/5))) scaled by a per-order factor:
-    in the MXU one-hot spreading formulation the per-atom cost is
+    in the one-hot matmul spreading formulation the per-atom cost is
     INDEPENDENT of the spline order (the dense (C, K_d) weight matrices
     have the same shape whatever the support width), so a higher order on
-    a coarser grid is pure savings — wyz HBM traffic scales with K² and
+    a coarser grid is pure savings — wyz memory traffic scales with K² and
     the FFT with K³. Measured on the 30k water state vs an f64
     order-8/96³ oracle (tools/pme_order_study.py): order 6 at 0.75×K is
     strictly MORE accurate than order 4 at K (force RMS 8.1e-4 vs 2.9e-3,

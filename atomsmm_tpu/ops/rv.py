@@ -7,7 +7,7 @@ radius) derives from ONE reciprocal square root:
 
     rinv = rsqrt(r²),  r = r²·rinv,  (σ/r)⁶ = (σ·rinv)⁶, ...
 
-Divides and sqrts are the dominant per-slot cost on the TPU VPU (each is a
+Divides and sqrts are the dominant per-slot arithmetic cost (each is a
 multi-op sequence); this carrier replaces {sqrt, 1/r in LJ, 1/r in Coulomb,
 1/r in fmag} with a single rsqrt. The pairfuncs helpers accept either an Rv
 or a plain r array (legacy exact path — the f64 CPU reference and user-

@@ -2,7 +2,7 @@
 
 OpenMM (the reference's substrate) applies SETTLE to every 3-site rigid
 water and falls back to iterative methods for general topologies
-(SURVEY.md §2b N5); this module is the TPU-native equivalent. The position
+(SURVEY.md §2b N5); this module is the equivalent. The position
 stage is the Miyamoto & Kollman (1992) geometric construction — an exact,
 branch-free sequence of rotations, vectorized over all molecules at once
 (one (M, ...) batch, no per-molecule loops, jit/scan friendly). The

@@ -3,7 +3,7 @@ points (OpenMM-substrate capability; SURVEY.md §2b, VERDICT r3 missing #5).
 
 OpenMM reconstructs virtual-site positions in C++ before every force
 evaluation and redistributes their forces onto the parent atoms by the
-chain rule. The TPU-native formulation is a COORDINATE TRANSFORMATION:
+chain rule. The formulation here is a COORDINATE TRANSFORMATION:
 the potential is evaluated at `place_virtual_sites(x)` (virtual rows
 replaced by their construction from parents), so
 

@@ -3,9 +3,9 @@
 The sequential alchemical workflow (alchemy.sample_lambda_states) visits K
 λ-states one after another in a single Context — K× the wall clock of one
 state. The K states are embarrassingly parallel (SURVEY.md §2c DP row:
-"cross-replica reductions (e.g. replica-exchange swaps) via psum/pmax over
-ICI"), so here they run as data-parallel replicas: every replica holds its
-OWN traced globals row (λ_k), all K step in one vmapped/jitted call, and
+"cross-replica reductions (e.g. replica-exchange swaps) via psum/pmax"),
+so here they run as data-parallel replicas: every replica holds its OWN
+traced globals row (λ_k), all K step in one vmapped/jitted call, and
 the batch is sharded over a `jax.sharding.Mesh` when one is given (XLA
 inserts the collectives; on a single chip the same code is a pure vmap
 batch, which already wins over the sequential visit by keeping the chip
@@ -20,7 +20,7 @@ device-side: a jitted Metropolis criterion over alternating even/odd pairs
 
 with configurations (x, v, neighbor extras) exchanged through one gather by
 a permutation computed from the accept mask — under a sharded batch the
-gather compiles to the ICI collective permute. λ stays pinned to its
+gather compiles to a collective permute. λ stays pinned to its
 replica row, so row k always samples state k and the MBAR bookkeeping is
 unchanged; the swaps only decorrelate the chain (mixing across the λ
 ladder), which is exactly their statistical job.

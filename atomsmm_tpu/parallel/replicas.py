@@ -1,11 +1,11 @@
 """Data-parallel replicated simulation boxes across a device mesh.
 
-The reference has no distributed execution at all (SURVEY.md §2c); the TPU
+The reference has no distributed execution at all (SURVEY.md §2c); this
 build's first-class parallel axis is replicated multi-box throughput
 (BASELINE.md config 5): independent replicas sharded over a `jax.sharding.Mesh`
 via shard_map, stepping in lockstep with zero per-step communication (MD, not
 training — no gradient sync). Cross-replica reductions (replica-exchange
-acceptance, ensemble averages) ride ICI via psum/pmax when needed.
+acceptance, ensemble averages) ride the interconnect via psum/pmax when needed.
 """
 from __future__ import annotations
 

@@ -1,14 +1,14 @@
 """Spatial decomposition across a device mesh (SURVEY.md §2c optional row).
 
 The reference runs on a single device; for atom counts where one chip's
-FLOPs bind (~100k+, BASELINE.md config 5) the honest TPU analog of "domain
+FLOPs bind (~100k+, BASELINE.md config 5) the honest analog of "domain
 decomposition" splits the dominant costs over the mesh:
 
   * pair forces — FORCE decomposition over home cells: every device holds
     the replicated positions/buckets (a few MB — trivially affordable next
     to pair-tile compute) and evaluates the cell-pair tiles for its slice of
     home cells, on the full (symmetric) stencil so each atom's force is
-    complete within its home device; one `psum` over ICI combines the
+    complete within its home device; one `psum` combines the
     disjoint per-device force arrays. Communication per evaluation: one
     (N, 3) psum + a scalar — no halo bookkeeping, no load-imbalance cliffs,
     exact same numerics as the single-device full-stencil path.
@@ -158,20 +158,20 @@ def sharded_pme_reciprocal_energy_fft(
     worth sharding").
 
     Pipeline, per device (D devices along `axis`):
-      1. spread the local ATOM shard onto a full grid (dense one-hot MXU
+      1. spread the local ATOM shard onto a full grid (dense one-hot matmul
          spreading, unchanged), then `psum_scatter` along K1 — each device
          keeps only its (K1/D, K2, K3) slab. Communication: one
          reduce-scatter = HALF the bytes of the fallback's all-reduce, and
          no device ever holds the summed K^3 grid.
       2. local rfft over K3 and fft over K2 (both axes device-local).
       3. one `all_to_all` transpose: (K1/D, K2, K3r) -> (K1, K2/D, K3r) —
-         the only full-spectrum shuffle, riding ICI.
+         the only full-spectrum shuffle, riding the interconnect.
       4. local fft over K1; multiply by THIS DEVICE'S block of the
          influence function (pme_influence(k2_indices=...)); psum the
          scalar.
     Forces come from jax.grad through the whole pipeline — the transposes
     of psum_scatter/all_to_all are all_gather/all_to_all, which XLA lowers
-    back onto ICI.
+    back onto the interconnect (NVLink between GPUs).
 
     Requires K1 % D == 0 and K2 % D == 0 (choose_pme_parameters
     multiple_of=D). Matches pme_reciprocal_energy to roundoff.

@@ -166,7 +166,6 @@ def RESPASystem(
                 float(rcut_in),
                 min_skin=0.09,
                 exclusions=np.asarray(nb.exclusions),
-                backend=system.neighbors.backend,
             )
         out = out.with_neighbors(system.neighbors, near=near_spec)
         out = out.replace_forces(

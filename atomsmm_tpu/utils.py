@@ -22,6 +22,7 @@ Examples:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import jax
@@ -110,3 +111,21 @@ def hijack_force(system, index: int):
     new_forces = tuple(f for i, f in enumerate(system.forces) if i != index)
     new_system = replace(system, forces=new_forces)
     return force, new_system
+
+
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache(root: str = CHECKOUT) -> str:
+    """Turn on JAX's persistent compilation cache; return its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it on its own and
+    nothing is set here. Otherwise the cache lives at ``<root>/.jax_cache``
+    (the checkout by default): a fixed path, since the path is part of
+    what makes a later process find an entry again."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(root, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -1,8 +1,9 @@
-"""Unit tests for bench.py's capture machinery (no TPU, no MD): the JSON
+"""Unit tests for bench.py's capture machinery (no device, no MD): the JSON
 emission contract (last-line-wins re-emission, always-parseable records),
 the self-asserting telemetry bands (VERDICT r4 #3), and the opt-in
-capacity-replay floors. bench.py's module level imports only stdlib+numpy,
-so importing it here never touches a backend."""
+capacity-replay floors. bench.py's module level imports only stdlib, numpy
+and jax (no backend is initialized), so importing it here never touches a
+device."""
 import importlib
 import io
 import json

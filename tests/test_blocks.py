@@ -10,7 +10,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-# EXPERIMENTAL alternate backends (ops/blocks.py / ops/tilepair.py) are off
+# The EXPERIMENTAL alternate backend (ops/blocks.py) is off
 # the production path — full parity sweeps run in the slow tier only
 pytestmark = pytest.mark.slow
 

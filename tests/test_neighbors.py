@@ -297,55 +297,6 @@ def test_coverage_wrap_aware_and_effective_skin():
     assert bool(coverage_deficient(spec2, box2 * s_edge))
 
 
-def test_pallas_vmem_budget_guard():
-    """Very coarse grids (a small box degenerating to a few huge cells) blow
-    the Pallas kernel's scoped-VMEM tile budget at COMPILE time (the 16 MB
-    stack limit; observed: 648-atom water -> capP 1112 -> 27.5 MB scoped
-    allocation). pallas_fits is the auto-backend guard; the stage functions
-    shrink the J-tile down to one lane and then refuse loudly."""
-    from atomsmm_tpu.ops.pallas_pair import (
-        LANE,
-        _check_fits,
-        _fit_j_tile,
-        pallas_fits,
-    )
-
-    # production headline shape (30k water, cap 56): fits at full tile
-    assert pallas_fits(56)
-    assert _fit_j_tile(56) == 512
-    # the observed failure shape: not even one lane tile fits
-    assert not pallas_fits(1112)
-    with pytest.raises(ValueError, match="scoped VMEM"):
-        _check_fits(1112, LANE, "stage_and_run")
-    # mid sizes: tile shrinks before the guard trips
-    capP = 640  # 640*512*80 = 25 MB -> halves to 256 (12.5 MB -> 128)
-    jt = _fit_j_tile(capP)
-    assert jt >= LANE and capP * jt * 4 * 20 <= (10 << 20)
-    _check_fits(capP, jt, "stage_and_run")  # no raise
-
-
-def test_retune_falls_back_to_xla_when_pallas_overflows_vmem():
-    """Overflow auto-recovery / NPT compression can grow cell_capacity past
-    the Pallas scoped-VMEM budget AFTER an explicit backend='pallas' spec
-    was built; retune_spec must re-check pallas_fits and fall back to the
-    XLA sweep instead of dying in _check_fits at the next compile."""
-    from atomsmm_tpu.ops.neighbors import make_neighbor_spec, retune_spec
-
-    box = np.asarray([2.0, 2.0, 2.0])
-    spec = make_neighbor_spec(box, n=1200, r_cut_max=0.9, backend="pallas")
-    assert spec.backend == "pallas"
-    # all atoms in one corner: measured occupancy 1200 -> cap > 1024
-    x = np.full((1200, 3), 0.1) + np.random.RandomState(0).uniform(
-        0, 0.01, (1200, 3))
-    tuned = retune_spec(spec, x, box)
-    assert tuned.cell_capacity > 1024
-    assert tuned.backend == "xla"
-    # a normal liquid-density retune keeps the requested backend
-    xs = np.random.RandomState(1).uniform(0, 2.0, (1200, 3))
-    ok = retune_spec(spec, xs, box)
-    assert ok.backend == "pallas"
-
-
 def test_retune_grow_only_floors_capacity():
     """Overflow auto-recovery retunes on the PRE-chunk state and replays the
     chunk with the same RNG; a retune that shrinks (or reproduces) capacity

@@ -135,7 +135,7 @@ def test_sharded_cell_forces_match_single_device():
     pair_fn = force._pair_fn({})
     pp = force._per_particle({})
 
-    full = dataclasses.replace(spec, half_stencil=False, backend="xla")
+    full = dataclasses.replace(spec, half_stencil=False)
     e_ref, f_ref = cell_pair_energy_forces(
         pair_fn, x, box, pp, full, bucket, force.r_cut
     )
@@ -264,8 +264,7 @@ def test_spatial_context_trajectory_parity():
 
     system, x, box = argon_system(n=512, jitter=0.2, seed=5, neighbors=True)
     # single-device reference on the full stencil (the sharded sweep's tiles)
-    full_spec = dataclasses.replace(system.neighbors, half_stencil=False,
-                                    backend="xla")
+    full_spec = dataclasses.replace(system.neighbors, half_stencil=False)
     system_full = dreplace(system, neighbors=full_spec)
     integ = VelocityVerletIntegrator(0.002)
 
@@ -306,8 +305,7 @@ def test_spatial_context_rigid_water_settle():
     system, x, box = rigid_water_system(n_molecules=64, r_cut=0.5,
                                         r_switch=0.42, neighbors=True,
                                         seed=3)
-    full_spec = dataclasses.replace(system.neighbors, half_stencil=False,
-                                    backend="xla")
+    full_spec = dataclasses.replace(system.neighbors, half_stencil=False)
     system_full = dreplace(system, neighbors=full_spec)
     integ = VelocityVerletIntegrator(0.002)
 
@@ -337,8 +335,7 @@ def test_spatial_context_pme_water():
 
     system, x, box = water_system(n_molecules=40, method="pme", r_cut=0.5,
                                   r_switch=0.45, neighbors=True)
-    full_spec = dataclasses.replace(system.neighbors, half_stencil=False,
-                                    backend="xla")
+    full_spec = dataclasses.replace(system.neighbors, half_stencil=False)
     system_full = dreplace(system, neighbors=full_spec)
     integ = VelocityVerletIntegrator(0.001)
 

@@ -1,7 +1,7 @@
 """Virtual sites (massless interaction points — TIP4P/TIP5P extra sites;
 SURVEY.md §2b substrate capability, VERDICT r3 missing #5).
 
-The TPU-native formulation evaluates the potential at placed coordinates,
+The formulation here evaluates the potential at placed coordinates,
 so force redistribution onto parents is the vjp of the placement — the
 oracles are therefore independent consistency checks: explicit-force path
 vs autodiff-through-placement, finite differences w.r.t. PARENT
@@ -192,11 +192,11 @@ def test_cold_start_capacity_covers_lattice_aliasing():
     3^3 cell grid whose coarse cells alias whole lattice planes (~213 sites
     in one cell vs the 200 the 1.7x mean-density margin provisions). Before
     occupancy_floor_from, the bucket overflowed at SETUP and the direct-aux
-    path (no Context auto-recovery) silently dropped pairs: the on-TPU gate
-    read dE = +194.7 kJ/mol / max|dF| = 1.7e3 vs the dense reference — a
-    path bug masquerading as an f32 precision failure. Builders now floor
-    the capacity at the measured setup occupancy, and assert_neighbor_health
-    gives direct consumers a loud check."""
+    path (no Context auto-recovery) silently dropped pairs: the f32-vs-f64
+    device gate read dE = +194.7 kJ/mol / max|dF| = 1.7e3 vs the dense
+    reference — a path bug masquerading as an f32 precision failure.
+    Builders now floor the capacity at the measured setup occupancy, and
+    assert_neighbor_health gives direct consumers a loud check."""
     from atomsmm_tpu.ops.neighbors import (
         all_neighbor_extras,
         assert_neighbor_health,

@@ -1,16 +1,15 @@
 """Spatial-DD scaling measurement (VERDICT r3 #5).
 
-Real multi-chip hardware is not available (SURVEY.md §0), so speedup
-cannot be measured directly, and the two indirect timers are confounded:
-XLA cost_analysis counts a lax.scan body once regardless of trip count
-(the cell sweep is chunk-scanned), and wall time over virtual CPU devices
-mixes in host thread contention. What IS exact and deterministic is the
-WORK MODEL: the pair sweep's cost is its padded tile-slot count
-(n_chunks x chunk x cap x S x cap pair slots per device — KERNELS.md
-shows measured ms tracks slots), and the reciprocal cost is grid points
-spread + FFT points transformed per device. This tool computes those
-per-device counts exactly from the NeighborSpec/grid for D = 1..8 and
-combines them with the v5e ICI comm model — every number is falsifiable
+Speedup is measured on the GPUs themselves; this tool gives the model to
+hold those times against. The two indirect timers are confounded: XLA
+cost_analysis counts a lax.scan body once regardless of trip count (the
+cell sweep is chunk-scanned), and wall time over virtual CPU devices mixes
+in host thread contention. What IS exact and deterministic is the WORK
+MODEL: the pair sweep's cost is its padded tile-slot count (n_chunks x
+chunk x cap x S x cap pair slots per device), and the reciprocal cost is
+grid points spread + FFT points transformed per device. This tool computes
+those per-device counts exactly from the NeighborSpec/grid for D = 1..8 and
+combines them with an NVLink comm model — every number is falsifiable
 arithmetic, not a noisy proxy.
 
 This modeling caught a real bug in r4: _cell_pair_sums padded each
@@ -18,7 +17,7 @@ device's cell_ids back up to a full-size chunk, so every device did the
 whole sweep's FLOPs on masked rows.
 
 Usage: python tools/dd_scaling.py [n_molecules] [pme|cutoff]
-Writes a markdown table to stdout (pasted into KERNELS.md).
+Writes a markdown table to stdout.
 """
 from __future__ import annotations
 
@@ -118,9 +117,9 @@ def main():
     print("\n(D=1 is the Newton half-stencil path; D>1 the sharded sweep "
           "runs the full stencil — ~2x the slots — so the crossover where "
           "D devices beat 1 is D ~ 3; past it, scaling is linear until the "
-          "ICI terms below matter.)")
+          "link terms below matter.)")
 
-    # communication model (v5e)
+    # communication model: NVLink, 450 GB/s each way per H100 (data sheet)
     psum_bytes = 12 * n  # (N, 3) f32 force allreduce
     if method == "pme":
         grid_elems = int(np.prod(system.forces[0].grid_shape))
@@ -135,10 +134,10 @@ def main():
     else:
         comm = psum_bytes
         print(f"\ncomm/force-eval: force psum {psum_bytes/1e6:.2f} MB")
-    print("v5e ICI ~45 GB/s/link/dir; ring allreduce(M) ~ 2M(D-1)/D / BW:")
+    print("NVLink 450 GB/s each way; ring allreduce(M) ~ 2M(D-1)/D / BW:")
     for d in (2, 4, 8):
-        t_us = 2 * comm * (d - 1) / d / 45e9 * 1e6
-        print(f"  D={d}: ~{t_us:.0f} us/eval of ICI time")
+        t_us = 2 * comm * (d - 1) / d / 450e9 * 1e6
+        print(f"  D={d}: ~{t_us:.0f} us/eval of link time")
 
 
 if __name__ == "__main__":

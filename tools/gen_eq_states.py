@@ -1,6 +1,6 @@
 """Generate frozen equilibrated states for bench.py (VERDICT r2 #1).
 
-Runs the TIMESTEP.md protocol once per bench config on the real TPU and
+Runs the TIMESTEP.md protocol once per bench config on the device and
 freezes the result into bench_data/*.npz (x, v, box, plus provenance
 metadata). bench.py then measures from these states after a short
 re-equilibration instead of 600 lattice-melt steps — the measured number

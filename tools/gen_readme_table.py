@@ -1,21 +1,15 @@
-"""Render README's perf + test-tier tables from a bench capture (VERDICT r4
-#5: one source of truth — the shop window must be generated from
-BENCH_r*.json / a bench.py capture plus a live pytest count, not
-hand-maintained).
+"""Render README's test-tier table from a live pytest count, so the counts
+the README states are never hand-maintained.
 
 Usage:
-  python tools/gen_readme_table.py [capture.json] [--check]
+  python tools/gen_readme_table.py [--check]
 
-capture.json defaults to the newest parseable record among BENCH_r*.json
-and bench_data/last_capture.json (a saved `python bench.py` stdout line).
-Rewrites the marked blocks in README.md in place; --check only verifies the
+Rewrites the marked block in README.md in place; --check only verifies the
 README matches (exit 1 on drift). Test counts come from
-`pytest --collect-only` per tier (skipped if pytest is unavailable).
+`pytest --collect-only` per tier.
 """
 from __future__ import annotations
 
-import glob
-import json
 import os
 import re
 import subprocess
@@ -23,93 +17,15 @@ import sys
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
-ROWS = [
-    ("water30k_respa_cutoff",
-     "q-SPC/Fw water, 30k atoms, RESPA @4 fs outer (see "
-     "[TIMESTEP.md](TIMESTEP.md)), NHC NVT (headline)"),
-    ("water30k_respa_pme",
-     "same with PME far force (order-6 splines + block-binned spreading, "
-     "[KERNELS.md](KERNELS.md))"),
-    ("water30k_sinr",
-     "same under SIN(R) @24 fs outer ([SINR_TIMESTEP.md](SINR_TIMESTEP.md))"),
-    ("tip3p30k_settle_nvt", "rigid TIP3P 30k (SETTLE), NVT @2 fs"),
-    ("tip3p30k_settle_hmr_4fs",
-     "rigid TIP3P 30k, SETTLE + HMR @4 fs single-timestep"),
-    ("tip3p30k_settle_hmr_respa16fs",
-     "rigid TIP3P 30k, SETTLE + HMR + RESPA @16 fs outer"),
-    ("emim_bf4_sinr_pme",
-     "emim/BF4 ionic liquid 5.2k atoms, PME, SIN(R) @30 fs outer "
-     "([SINR_TIMESTEP.md](SINR_TIMESTEP.md))"),
-    ("water100k_npt",
-     "100k atoms, NPT (MC barostat), RESPA @4 fs, cutoff/RF"),
-    ("water100k_npt_pme",
-     "100k atoms, NPT, RESPA @4 fs, PME far force (block-binned "
-     "spreading)"),
-    ("swm4_10k_drude_el",
-     "SWM4-NDP polarizable water 10k sites, Drude extended-Lagrangian "
-     "@1 fs"),
-    ("argon4k_nve", "LJ argon 4k, NVE @2 fs"),
-]
-
 TIERS = [
     ("smoke", ["-m", "smoke"],
      "every force/integrator class touched once"),
     ("middle", ["-m", "not slow"],
-     "everything except trajectory/statistics runs and the experimental "
-     "tile backends"),
+     "everything except trajectory/statistics runs"),
     ("full", [],
      "incl. NVE-drift, KE-distribution (χ²), ΔG end-to-end, HREX mesh "
      "parity"),
 ]
-
-
-def newest_capture():
-    cands = sorted(glob.glob(os.path.join(ROOT, "BENCH_r*.json")))
-    cands.append(os.path.join(ROOT, "bench_data", "last_capture.json"))
-    best = None
-    for path in cands:
-        try:
-            with open(path) as f:
-                d = json.load(f)
-        except (OSError, ValueError):
-            continue
-        rec = d.get("parsed") if "parsed" in d else d
-        if rec and rec.get("value"):
-            best = (path, rec)
-    return best
-
-
-def fmt(v, nd=1):
-    return f"{v:.{nd}f}" if isinstance(v, (int, float)) else "—"
-
-
-def perf_table(rec):
-    ex = rec.get("extras", {})
-    lines = ["| config | ms/step | ns/day |", "|---|---|---|"]
-    for tag, label in ROWS:
-        ns = ex.get(f"{tag}_ns_day")
-        ms = ex.get(f"{tag}_ms_step")
-        if ns is None and ms is None:
-            continue
-        nd_ms = 2 if (ms or 10) < 2 else 1
-        lines.append(f"| {label} | {fmt(ms, nd_ms)} | {fmt(ns)} |")
-    rows = ex.get("alchemy_phenol_16state_rows_per_s")
-    if rows is not None:
-        lines.append("| alchemy: 16-state reduced-energy rows, 3k atoms "
-                     f"| — | {fmt(rows, 0)} rows/s |")
-    hx = ex.get("hrex_16state_state_steps_per_s")
-    if hx is not None:
-        seq = ex.get("hrex_seq_baseline_state_steps_per_s")
-        acc = ex.get("hrex_swap_acceptance")
-        extra = f" (vs {fmt(seq, 0)} sequential on the same chip" \
-            if seq is not None else "("
-        if acc is not None:
-            extra += f"; swap acc {fmt(acc, 2)}"
-        extra += ("; the replica axis wins on a multi-chip mesh, not one "
-                  "core)")
-        lines.append("| HREX phenol+water, 16 λ-states on one chip | — | "
-                     f"{fmt(hx, 0)} state-steps/s{extra} |")
-    return "\n".join(lines)
 
 
 def count_tests(markers):
@@ -149,34 +65,21 @@ def splice(text, marker, payload):
 
 
 def main():
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     check = "--check" in sys.argv
-    if args:
-        with open(args[0]) as f:
-            d = json.load(f)
-        rec = d.get("parsed") if "parsed" in d else d
-        src = args[0]
-    else:
-        found = newest_capture()
-        if not found:
-            raise SystemExit("no parseable bench capture found")
-        src, rec = found
     readme = os.path.join(ROOT, "README.md")
     with open(readme) as f:
         text = f.read()
-    out = splice(text, "BENCH_TABLE", perf_table(rec))
-    out = splice(out, "TIER_TABLE", tier_table())
+    out = splice(text, "TIER_TABLE", tier_table())
     if check:
         if out != text:
-            print("README tables drift from the capture — rerun "
+            print("README tier table drifts from the live count — rerun "
                   "tools/gen_readme_table.py", file=sys.stderr)
             raise SystemExit(1)
-        print("README tables match", file=sys.stderr)
+        print("README tier table matches", file=sys.stderr)
         return
     with open(readme, "w") as f:
         f.write(out)
-    print(f"README tables regenerated from {os.path.relpath(src, ROOT)}",
-          file=sys.stderr)
+    print("README tier table regenerated", file=sys.stderr)
 
 
 if __name__ == "__main__":

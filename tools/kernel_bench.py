@@ -2,7 +2,7 @@
 
 Measures ms/eval of the dominant far-force kernel (the fused
 full+negated-near tile pass on the default r=0.9 grid) for the 30k-atom
-water system across backend/capacity variants, on the real TPU, from the
+water system across stencil/capacity variants, on the GPU, from the
 frozen equilibrated state. Run: python tools/kernel_bench.py [cutoff|pme]
 """
 from __future__ import annotations
@@ -96,10 +96,8 @@ def main():
         log(f"{tag}: {ms:.3f} ms")
 
     variants = [
-        ("xla_half_auto", dataclasses.replace(spec0, backend="xla")),
-        ("xla_full", dataclasses.replace(spec0, backend="xla",
-                                         half_stencil=False)),
-        ("pallas_half", dataclasses.replace(spec0, backend="pallas")),
+        ("xla_half_auto", spec0),
+        ("xla_full", dataclasses.replace(spec0, half_stencil=False)),
     ]
     # capacity alignment: pad cap up to the next multiples of 8 and 16
     for pad in (8, 16, 32):
@@ -107,14 +105,13 @@ def main():
         if cap != spec0.cell_capacity:
             variants.append(
                 (f"xla_half_cap{cap}",
-                 dataclasses.replace(spec0, backend="xla",
-                                     cell_capacity=cap)))
+                 dataclasses.replace(spec0, cell_capacity=cap)))
     # chunk sweep (home cells per scan step)
     for ch in (2, 4, 8, 16):
         if ch != spec0.cell_chunk:
             variants.append(
                 (f"xla_half_chunk{ch}",
-                 dataclasses.replace(spec0, backend="xla", cell_chunk=ch)))
+                 dataclasses.replace(spec0, cell_chunk=ch)))
 
     # finer grids with larger stencil reach: candidate volume shrinks toward
     # the Minkowski bound at the cost of more (smaller) tiles
@@ -126,7 +123,7 @@ def main():
             sp = make_neighbor_spec(
                 box, n, float(r_cut), skin=0.1,
                 exclusions=respa.neighbors.exclusions,
-                cells_per_cutoff=reach, occupancy_from=x, backend="xla",
+                cells_per_cutoff=reach, occupancy_from=x,
             )
             variants.append((
                 f"xla_half_reach{reach}_grid{sp.grid[0]}_cap{sp.cell_capacity}",
@@ -168,7 +165,7 @@ def main():
         os.environ["ATOMSMM_EXACT_ERFC"] = "1"
         try:
             run_variant("far_exact_erfc",
-                        dataclasses.replace(spec0, backend="xla"))
+                        spec0)
             if near_spec is not None:
                 ms = timeit(fnear, x)
                 results["near_exact_erfc"] = round(ms, 3)

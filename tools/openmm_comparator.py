@@ -1,6 +1,6 @@
 """OpenMM-CPU comparator for the headline benchmark (BASELINE.md caveat).
 
-The north star is "ns/day >= 5x OpenMM-CPU per TPU core" on config 2
+The original target was "ns/day >= 5x OpenMM-CPU" on config 2
 (30k-atom q-SPC/Fw water, 2-level RESPA @ 4 fs outer), but OpenMM is not
 installed in the build image, so `bench.py` carries a provisional
 comparator constant (5.0 ns/day). This script makes that constant

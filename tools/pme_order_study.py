@@ -12,7 +12,7 @@ accuracy of candidate (order, grid) pairs against a well-converged f64
 reference (order 8, 96³), reporting relative energy error and relative
 RMS force error. The headline PME tolerance is 5e-4 (openmm default).
 
-Run: python tools/pme_order_study.py   (CPU, f64 — no TPU needed)
+Run: python tools/pme_order_study.py   (CPU, f64 — no GPU needed)
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Prints ms per force-group evaluation (in-loop, dispatch-free) and the
 step-rate decomposition for the 30k water RESPA config, from the frozen
-equilibrated state. Run on the real TPU: python tools/profile_headline.py
+equilibrated state. Run on the GPU: python tools/profile_headline.py
 [cutoff|pme]
 """
 from __future__ import annotations
@@ -24,6 +24,8 @@ def log(*a):
 
 def main():
     method = sys.argv[1] if len(sys.argv) > 1 else "cutoff"
+    import jax
+
     from atomsmm_tpu import (
         Context,
         MultipleTimeScaleIntegrator,
@@ -45,8 +47,7 @@ def main():
     ex, ev, ebox = eq
     ctx = Context(respa, integ, make_state(ex, v=ev, box=ebox))
     t0 = time.perf_counter()
-    ctx.step(1)
-    float(ctx.state.x[0, 0])
+    jax.block_until_ready(ctx.step(1).state)
     log(f"compile {time.perf_counter()-t0:.0f}s")
     ctx.step(100)
     ctx.retune_neighbors()
@@ -55,7 +56,7 @@ def main():
         (ctx.system.extra_neighbor_specs or {}).items()
     ):
         log(f"spec[{name}]: grid={spec.grid} cap={spec.cell_capacity} "
-            f"chunk={spec.cell_chunk} backend={spec.backend} "
+            f"chunk={spec.cell_chunk} "
             f"half={spec.half_stencil}")
 
     prof = profile_forces(ctx, reps=30)

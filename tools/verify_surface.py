@@ -1,4 +1,5 @@
-"""Library-surface verification on the default (TPU) backend — see .claude/skills/verify."""
+"""Library-surface verification on the default (GPU) backend — see
+.claude/skills/verify."""
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import atomsmm_tpu as amm
@@ -11,7 +12,7 @@ drift = abs(e1 - e0) / 500
 print(f"NVE drift/atom over 500 steps: {drift:.2e} kJ/mol (bar 1e-4)")
 assert drift < 1e-4
 
-# RESPA water on TPU: NVT temperature + split consistency
+# RESPA water on the GPU: NVT temperature + split consistency
 system, x, box = water_system(n_molecules=256, method="cutoff", neighbors=True)
 respa = amm.RESPASystem(system, rcut_in=0.5, rswitch_in=0.4)
 integ = amm.MultipleTimeScaleIntegrator(0.004, [4, 2, 1], temperature=300.0,
